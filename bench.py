@@ -12,7 +12,7 @@ Workloads on a chr21-scale genome (46.7 Mbp, tools/bench_data.py):
   concordance rate.
 * GMAP: 256 multi-exon cDNAs through the bulk cDNA aligner.
 
-Prints ONE JSON line. vs_baseline ratios compare against a
+Prints ONE JSON line, naming the device it ran on. vs_baseline ratios compare against a
 32-core-EQUIVALENT of the reference: per-core AVX2 gsnap marginal
 throughput (tools/measure_baseline.py, hand-built, steady-state slope)
 x 32 assuming perfect core scaling — the deployment baseline BASELINE.md
@@ -60,96 +60,6 @@ def _vs(value, base):
     return round(value / base, 2) if base else None
 
 
-def _junctions(rec):
-    """Genomic (donor, acceptor) junction pairs from a SAM record
-    (single-chromosome bench genome: univcoord == chrpos)."""
-    if rec.flag & 4:
-        return ()
-    cig = rec.cigar
-    if "N" not in cig:
-        return ()
-    js = []
-    cur = rec.pos - 1
-    num = 0
-    for ch in cig:
-        if ch.isdigit():
-            num = num * 10 + ord(ch) - 48
-        else:
-            if ch == "N":
-                js.append((cur, cur + num))
-                cur += num
-            elif ch in "MD=X":
-                cur += num
-            num = 0
-    return js
-
-
-def _parse_line(line: str):
-    """(flag, pos, cigar, xa) from one SAM text line (bench genome is
-    single-chromosome, so univcoord == chrpos)."""
-    c = line.split("\t")
-    xa = next((t[5:] for t in c[11:] if t.startswith("XA:Z:")), None)
-    return int(c[1]), int(c[3]), c[5], xa
-
-
-def _cigar_junctions(pos: int, cigar: str):
-    """Genomic (donor, acceptor) pairs from pos + CIGAR."""
-    if "N" not in cigar:
-        return ()
-    js = []
-    cur = pos - 1
-    num = 0
-    for ch in cigar:
-        if ch.isdigit():
-            num = num * 10 + ord(ch) - 48
-        else:
-            if ch == "N":
-                js.append((cur, cur + num))
-                cur += num
-            elif ch in "MD=X":
-                cur += num
-            num = 0
-    return js
-
-
-def _ref_span(cigar: str) -> int:
-    """Reference bases consumed by a CIGAR."""
-    n = num = 0
-    for ch in cigar:
-        if ch.isdigit():
-            num = num * 10 + ord(ch) - 48
-        else:
-            if ch in "MDN=X":
-                n += num
-            num = 0
-    return n
-
-
-def _xa_junctions(pos: int, cigar: str, xa: str):
-    """Candidate (donor, acceptor) pairs implied by the XA:Z: ambiguous
-    splice-end alternates (tied distal placements of a demoted terminal
-    exon, src/altsplice.c): qstart dists anchor at the record start
-    (acceptor side), qend dists at the record end (donor side)."""
-    if not xa:
-        return ()
-    qs, _, qe = xa.partition("|")
-    js = []
-    start = pos - 1
-    for d in qs.split(","):
-        if d:
-            js.append((start - int(d), start))
-    end = pos - 1 + _ref_span(cigar)
-    for d in qe.split(","):
-        if d:
-            js.append((end, end + int(d)))
-    return js
-
-
-def _sam_bytes(records):
-    """Materialize final SAM text (the end-to-end contract)."""
-    return sum(len(r.lines()) for r in records)
-
-
 def main():
     import jax
     import jax.numpy as jnp
@@ -162,7 +72,7 @@ def main():
     from tpumap.ops import pack
     from tpumap.index import GenomeDB, build_db
     from tpumap.index.device import DeviceIndex
-    from tpumap.io.fasta import Record, read_fasta
+    from tpumap.io.fasta import read_fasta
     from tpumap.utils import dna
 
     base, base_note = _load_baseline()
@@ -176,7 +86,10 @@ def main():
     index = DeviceIndex.from_host(db)
     config = AlignConfig(top_k=4, max_occ=4)
     B = 32768
-    out = {"baseline": base_note}
+    dev = jax.devices()[0]
+    out = {"device": {"platform": dev.platform, "kind": dev.device_kind,
+                      "count": len(jax.devices())},
+           "baseline": base_note}
 
     # ---- DNA end-to-end (headline) -----------------------------------
     # The timed region is steady state: the warm call compiles/loads every
@@ -260,49 +173,14 @@ def main():
     align_records(db, index, rna_reads, config, novelsplicing=True,
                   batch_size=RB, sink=rbuf.write)
     rna_dt = time.perf_counter() - t0
-    truth = bench_data.rna_truth()
-    tp = fp = fn = 0
-    xa_cred = 0
-    n_loc = 0
-    rna_spliced = 0
-    rna_mapped = 0
-    lines = rbuf.getvalue().decode().splitlines()
-    assert len(lines) == len(truth)
-    for line, (tjs, tstart) in zip(lines, truth):
-        flag, pos, cigar, xa = _parse_line(line)
-        pjs = set(_cigar_junctions(pos, cigar))
-        if pjs:
-            rna_spliced += 1
-        if not flag & 4:
-            rna_mapped += 1
-        tp += len(pjs & tjs)
-        fp += len(pjs - tjs)
-        missed = tjs - pjs
-        fn += len(missed)
-        if missed and xa:
-            # XA-credited: a truth junction among the tied alternates of
-            # a demoted ambiguous end counts as recalled (the demotion is
-            # altsplice.c behavior, not a miss)
-            xa_cred += len(missed & set(_xa_junctions(pos, cigar, xa)))
-        if not flag & 4 and abs(pos - 1 - tstart) <= 150:
-            n_loc += 1
-    prec = tp / max(tp + fp, 1)
-    rec_ = tp / max(tp + fn, 1)
+    g = bench_data.grade_rna(rbuf.getvalue().decode().splitlines())
     rna_rps = len(rna_reads) / rna_dt
     out.update({
         "rna_reads_per_sec": round(rna_rps, 1),
         "rna_vs_baseline": _vs(rna_rps, base.get("rna")),
-        "rna_mapped_frac": round(rna_mapped / len(rna_reads), 4),
-        "rna_spliced_frac": round(rna_spliced / len(rna_reads), 4),
-        "rna_junction_precision": round(prec, 4),
-        "rna_junction_recall": round(rec_, 4),
-        "rna_junction_recall_xa": round((tp + xa_cred) / max(tp + fn, 1),
-                                        4),
-        "rna_junction_f1": round(2 * prec * rec_ / max(prec + rec_, 1e-9),
-                                 4),
-        "rna_locus_acc": round(n_loc / len(rna_reads), 4),
+        **{f"rna_{k}": round(v, 4) for k, v in g.items()},
     })
-    del rbuf, lines
+    del rbuf
 
     # ---- paired-end --------------------------------------------------
     f1, f2 = bench_data.ensure_pe_files()
@@ -320,10 +198,8 @@ def main():
                          pairmax=1000, sink=pbuf.write)
     pe_dt = time.perf_counter() - t0
     pe_rps = 2 * len(pairs) / pe_dt
-    first = [l for l in pbuf.getvalue().decode().splitlines()
-             if int(l.split("\t", 2)[1]) & 0x40]
-    conc = sum(1 for l in first
-               if int(l.split("\t", 2)[1]) & 2) / max(len(first), 1)
+    conc = bench_data.grade_pe(
+        pbuf.getvalue().decode().splitlines())["concordant_frac"]
     out.update({
         "pe_reads_per_sec": round(pe_rps, 1),
         "pe_vs_baseline": _vs(pe_rps, base.get("pe")),
@@ -332,27 +208,24 @@ def main():
     del pbuf
 
     # ---- GMAP cDNA ----------------------------------------------------
-    try:
-        from tools.bench_gmap import make_queries
-        from tpumap.cli.gmap_cli import align_queries_bulk
-        queries = make_queries(db)
-        enc = [dna.encode(q) for q in queries]
-        align_queries_bulk(db, index, enc)                       # warm
-        t0 = time.perf_counter()
-        res = align_queries_bulk(db, index, enc)
-        gmap_dt = time.perf_counter() - t0
-        out["gmap_queries_per_sec"] = round(len(queries) / gmap_dt, 1)
-        out["gmap_vs_baseline"] = _vs(len(queries) / gmap_dt,
-                                      base.get("gmap"))
-        # reference gmap is multithreaded (src/gmap.c:4867 worker pool);
-        # grade against the same 32-core equivalent as the gsnap rows
-        out["gmap_vs_baseline32"] = _vs(
-            len(queries) / gmap_dt,
-            base["gmap"] * BASELINE_CORES if base.get("gmap") else None)
-        out["gmap_found_frac"] = round(sum(1 for x in res if x)
-                                       / len(queries), 4)
-    except Exception as exc:                # keep the bench JSON intact
-        out["gmap_error"] = f"{type(exc).__name__}: {exc}"
+    from tools.bench_gmap import make_queries
+    from tpumap.cli.gmap_cli import align_queries_bulk
+    queries = make_queries(db)
+    enc = [dna.encode(q) for q in queries]
+    align_queries_bulk(db, index, enc)                       # warm
+    t0 = time.perf_counter()
+    res = align_queries_bulk(db, index, enc)
+    gmap_dt = time.perf_counter() - t0
+    out["gmap_queries_per_sec"] = round(len(queries) / gmap_dt, 1)
+    out["gmap_vs_baseline"] = _vs(len(queries) / gmap_dt,
+                                  base.get("gmap"))
+    # reference gmap is multithreaded (src/gmap.c:4867 worker pool);
+    # grade against the same 32-core equivalent as the gsnap rows
+    out["gmap_vs_baseline32"] = _vs(
+        len(queries) / gmap_dt,
+        base["gmap"] * BASELINE_CORES if base.get("gmap") else None)
+    out["gmap_found_frac"] = round(sum(1 for x in res if x)
+                                   / len(queries), 4)
 
     # ---- DP cells/sec/chip (BASELINE.json second headline) -----------
     from tpumap.ops import dp as dp_ops
@@ -373,24 +246,6 @@ def main():
     dp_dt = time.perf_counter() - t0
     out["dp_cells_per_sec"] = round(
         NREP * DB * DLQ * (2 * DBAND + 1) / dp_dt, 0)
-
-    # ---- HBM-scale residency (tools/bench_large.py, run separately:
-    # the 500 Mbp build + k=15 compile are one-time costs cached on
-    # disk; its measured numbers fold into this line when present) ----
-    large = pathlib.Path(__file__).parent / "LARGE_GENOME.json"
-    if large.exists():
-        d = json.loads(large.read_text())
-        out.update({
-            "large_genome_bp": d.get("genome_bp"),
-            "large_index_hbm_gb": d.get("index_hbm_gb"),
-            "large_reads_per_sec": d.get("large_reads_per_sec"),
-            "large_vs_baseline": _vs(d.get("large_reads_per_sec", 0),
-                                     base.get("dna")),
-            "large_aligned_frac": d.get("aligned_frac"),
-            "large_hbm_upload_s": d.get("hbm_upload_s"),
-        })
-        if d.get("partial"):
-            out["large_partial"] = True
 
     print(json.dumps(out))
 

@@ -1,6 +1,6 @@
 """Multi-process two-pass table reduction (parallel/distributed.py):
 two jax processes each learn DIFFERENT junctions in pass 1; after the
-DCN all-gather both hold the union (SURVEY §5 distributed backend,
+cross-process all-gather both hold the union (SURVEY §5 distributed backend,
 src/gsnap.c:4340-4352 role)."""
 import json
 import os

@@ -73,3 +73,28 @@ def test_gzip_falls_back(tmp_path):
     names, quals, batch = load_reads_arrays(str(p))
     assert names == ["a"]
     assert list(batch["codes"][0][:4]) == [0, 1, 2, 3]
+
+
+def test_changed_key_triggers_rebuild(tmp_path, monkeypatch):
+    import os
+    import shutil
+
+    from tpumap import native
+    srcs = []
+    for s in native._SRCS:
+        shutil.copy(s, tmp_path / os.path.basename(s))
+        srcs.append(str(tmp_path / os.path.basename(s)))
+    build = tmp_path / "build"
+    first = native.ensure_built(srcs, build_dir=str(build))
+    stamp = os.path.getmtime(first)
+    assert native.ensure_built(srcs, build_dir=str(build)) == first
+    assert os.path.getmtime(first) == stamp          # reused, not rebuilt
+    with open(srcs[0], "a") as f:
+        f.write("\n// changed source\n")
+    second = native.ensure_built(srcs, build_dir=str(build))
+    assert second != first and os.path.exists(second)
+    assert not list(build.glob("*.tmp"))
+    key = native.build_key(srcs)
+    assert native.build_key(srcs, flags=["-O2", "-shared", "-fPIC"]) != key
+    monkeypatch.setattr(native.platform, "machine", lambda: "other-arch")
+    assert native.build_key(srcs) != key

@@ -1,5 +1,5 @@
 """Multi-process ordered output merge (parallel/outmerge.py, gsnap -O):
-a 2-process DCN run with --ordered must write ONE stream, from process
+a 2-process run with --ordered must write ONE stream, from process
 0 only, byte-identical to the single-process run — the
 Outbuffer_thread_ordered contract (src/outbuffer.c:1387) at the
 process-per-host scale (SURVEY §5 distributed backend)."""

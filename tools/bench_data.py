@@ -20,7 +20,8 @@ import pathlib
 
 import numpy as np
 
-ROOT = pathlib.Path("/tmp/tpumap_bench")
+# generated files and index, at the root of the checkout (gitignored)
+ROOT = pathlib.Path(__file__).resolve().parent.parent / ".bench_data"
 GENOME_LEN = 46_700_000
 N_READS = 50_000
 READ_LEN = 100
@@ -72,7 +73,7 @@ def _codes_to_str(codes: np.ndarray) -> str:
 
 def ensure_files() -> tuple[pathlib.Path, pathlib.Path]:
     """Write genome.fa and DNA reads.fa if missing; return their paths."""
-    ROOT.mkdir(exist_ok=True)
+    ROOT.mkdir(parents=True, exist_ok=True)
     gfa, rfa = ROOT / "genome.fa", ROOT / "reads.fa"
     if not gfa.exists():
         seq = _codes_to_str(genome_codes())
@@ -228,3 +229,133 @@ def _write_rna_reads(rfa):
                 s = 3 - s[::-1]
             nj = len(p["segs"]) - 1
             f.write(f">q{i}_{nj}\n{_codes_to_str(s)}\n")
+
+
+# ---- grading against the generator's truth (bench.py, chip_smoke.py) ----
+
+LOCUS_SLOP = 150        # bp between the reported and the true start
+
+
+def sam_primaries(lines):
+    """(qname, flag, pos, cigar, xa) of each primary record in SAM text
+    lines; headers, secondary and supplementary records are skipped (the
+    bench genome has one chromosome, so univcoord == chrpos)."""
+    for line in lines:
+        if not line or line[0] == "@":
+            continue
+        c = line.split("\t")
+        flag = int(c[1])
+        if flag & 0x900:
+            continue
+        xa = next((t[5:] for t in c[11:] if t.startswith("XA:Z:")), None)
+        yield c[0], flag, int(c[3]), c[5], xa
+
+
+def cigar_junctions(pos: int, cigar: str):
+    """Genomic (donor, acceptor) pairs from pos + CIGAR."""
+    if "N" not in cigar:
+        return ()
+    js = []
+    cur = pos - 1
+    num = 0
+    for ch in cigar:
+        if ch.isdigit():
+            num = num * 10 + ord(ch) - 48
+        else:
+            if ch == "N":
+                js.append((cur, cur + num))
+                cur += num
+            elif ch in "MD=X":
+                cur += num
+            num = 0
+    return js
+
+
+def ref_span(cigar: str) -> int:
+    """Reference bases consumed by a CIGAR."""
+    n = num = 0
+    for ch in cigar:
+        if ch.isdigit():
+            num = num * 10 + ord(ch) - 48
+        else:
+            if ch in "MDN=X":
+                n += num
+            num = 0
+    return n
+
+
+def xa_junctions(pos: int, cigar: str, xa: str):
+    """Candidate (donor, acceptor) pairs implied by the XA:Z: ambiguous
+    splice-end alternates (tied distal placements of a demoted terminal
+    exon, src/altsplice.c): qstart dists anchor at the record start
+    (acceptor side), qend dists at the record end (donor side)."""
+    if not xa:
+        return ()
+    qs, _, qe = xa.partition("|")
+    js = []
+    start = pos - 1
+    for d in qs.split(","):
+        if d:
+            js.append((start - int(d), start))
+    end = pos - 1 + ref_span(cigar)
+    for d in qe.split(","):
+        if d:
+            js.append((end, end + int(d)))
+    return js
+
+
+def grade_dna(lines, n_reads: int | None = None) -> dict:
+    """Aligned fraction and locus accuracy of DNA reads r<i>, over the
+    first n_reads reads of the plan (default all)."""
+    starts, _strands, _subs = read_plan()
+    n = n_reads or N_READS
+    mapped = loc = 0
+    for qname, flag, pos, _cigar, _xa in sam_primaries(lines):
+        if flag & 4:
+            continue
+        mapped += 1
+        if abs(pos - 1 - int(starts[int(qname[1:])])) <= LOCUS_SLOP:
+            loc += 1
+    return {"aligned_frac": mapped / n, "locus_acc": loc / n}
+
+
+def grade_rna(lines, n_reads: int | None = None) -> dict:
+    """Junction precision/recall and locus accuracy of RNA reads
+    q<i>_<nj> against rna_truth(), over the first n_reads reads."""
+    truth = rna_truth()
+    n = n_reads or len(truth)
+    tp = fp = fn = xa_cred = n_loc = spliced = mapped = 0
+    for qname, flag, pos, cigar, xa in sam_primaries(lines):
+        tjs, tstart = truth[int(qname[1:].split("_")[0])]
+        pjs = set(cigar_junctions(pos, cigar))
+        if pjs:
+            spliced += 1
+        if not flag & 4:
+            mapped += 1
+        tp += len(pjs & tjs)
+        fp += len(pjs - tjs)
+        missed = tjs - pjs
+        fn += len(missed)
+        if missed and xa:
+            # XA-credited: a truth junction among the tied alternates of
+            # a demoted ambiguous end counts as recalled (the demotion is
+            # altsplice.c behavior, not a miss)
+            xa_cred += len(missed & set(xa_junctions(pos, cigar, xa)))
+        if not flag & 4 and abs(pos - 1 - tstart) <= LOCUS_SLOP:
+            n_loc += 1
+    prec = tp / max(tp + fp, 1)
+    rec = tp / max(tp + fn, 1)
+    return {"mapped_frac": mapped / n, "spliced_frac": spliced / n,
+            "junction_precision": prec, "junction_recall": rec,
+            "junction_recall_xa": (tp + xa_cred) / max(tp + fn, 1),
+            "junction_f1": 2 * prec * rec / max(prec + rec, 1e-9),
+            "locus_acc": n_loc / n}
+
+
+def grade_pe(lines) -> dict:
+    """Fraction of first mates whose primary record is flagged concordant
+    (proper pair)."""
+    first = [flag for _q, flag, _p, _c, _x in sam_primaries(lines)
+             if flag & 0x40]
+    return {"concordant_frac": sum(1 for f in first if f & 2)
+            / max(len(first), 1)}

@@ -19,20 +19,27 @@ import numpy as np
 REFBIN = pathlib.Path("/tmp/refbin")
 
 
-def make_queries(db, n=256, seed=7):
+def query_plan(genome_length: int, n: int = 256, seed: int = 7):
+    """[(exon_start, exon_len), ...] of each synthetic cDNA: 2-5 exons of
+    100-399 bp, introns of 200-4999 bp."""
     rng = np.random.default_rng(seed)
-    g = db.get_seq(0, db.genome_length)
-    queries = []
+    plan = []
     for _ in range(n):
         ne = int(rng.integers(2, 6))
-        pos = int(rng.integers(0, db.genome_length - 100000))
-        parts = []
+        pos = int(rng.integers(0, genome_length - 100000))
+        exons = []
         for _ in range(ne):
             el = int(rng.integers(100, 400))
-            parts.append(g[pos:pos + el])
+            exons.append((pos, el))
             pos += el + int(rng.integers(200, 5000))
-        queries.append("".join(parts))
-    return queries
+        plan.append(exons)
+    return plan
+
+
+def make_queries(db, n=256, seed=7):
+    g = db.get_seq(0, db.genome_length)
+    return ["".join(g[a:a + ln] for a, ln in exons)
+            for exons in query_plan(db.genome_length, n, seed)]
 
 
 def main():

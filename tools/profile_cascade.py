@@ -5,7 +5,7 @@ Times (per 16384-read batch, median of N):
   full   — align_batch only (prevalent-diagonal rung on the whole batch)
   casc   — align_batch_cascaded (production path)
 
-Run on the real TPU (no JAX_PLATFORMS override).
+Run on the GPU (times from the CPU backend say nothing about it).
 """
 import pathlib
 import statistics

@@ -1,24 +1,54 @@
 #!/usr/bin/env python3
-"""Device-side profile of the fused DNA ladder: top XLA fusions by time.
+"""Device-side profile of one fused-ladder batch: top XLA ops by time.
 
-Traces one steady-state batch with jax.profiler and summarizes per-op
-device time from the trace protobuf.
+Runs one batch of the bench workload through the fused ladder at the
+CLI's default configuration and batch shape (DNA: B=32768, RNA:
+B=16384 with -N 1; L=128), traces a second, compiled run with
+jax.profiler, and reduces the trace's GPU planes to per-op device time,
+the share of it spent in gather ops (the k-mer offsets/positions reads),
+and the device busy share of the traced window.
+
+    python tools/profile_device.py [dna|rna]      # on the GPU
 """
-import glob
-import gzip
-import json
 import pathlib
 import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-import numpy as np
+
+def device_op_times(xplane_path: str):
+    """({op name: device ns}, busy ns, window ns, [plane/line names])
+    from the compute-stream lines of a trace's GPU planes (a line per
+    CUDA stream, named like "Stream #13(MemcpyH2D,Compute)"; its events
+    are the kernels and copies run on it)."""
+    from jax.profiler import ProfileData
+    ops, spans, seen = {}, [], []
+    for plane in ProfileData.from_file(xplane_path).planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            seen.append(f"{plane.name}/{line.name}")
+            if "Compute" not in line.name:
+                continue
+            for ev in line.events:
+                ops[ev.name] = ops.get(ev.name, 0) + ev.duration_ns
+                spans.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = (max(b for _a, b in spans) - min(a for a, _b in spans)
+              if spans else 0.0)
+    return ops, busy, window, seen
 
 
 def main():
+    import glob
+    import shutil
+
     import jax
-    import jax.numpy as jnp
 
     from tools import bench_data
     from tpumap.gsnap import ladder
@@ -30,68 +60,48 @@ def main():
     from tpumap.ops import pathdp
     from tpumap.utils.fetch import device_fetch
 
-    gfa, rfa = bench_data.ensure_files()
+    rna = len(sys.argv) > 1 and sys.argv[1] == "rna"
+    gfa, rfa = (bench_data.ensure_rna_files() if rna
+                else bench_data.ensure_files())
     dbdir = bench_data.ROOT / "db_k14"
-    db = (GenomeDB.load(str(dbdir)) if (dbdir / "meta.json").exists()
-          else build_db(gfa, name="bench", k=14, interval=3))
+    if (dbdir / "meta.json").exists():
+        db = GenomeDB.load(str(dbdir))
+    else:
+        db = build_db(gfa, name="bench", k=14, interval=3)
+        db.save(str(dbdir))
     index = DeviceIndex.from_host(db)
-    config = AlignConfig(top_k=4, max_occ=4)
-    B, L = 16384, 112
-    reads = list(read_fasta(rfa))
-    sc = pathdp.PathScoring(max_intron=200_000)
-    splicing = len(sys.argv) > 1 and sys.argv[1] == "rna"
-
-    batch = make_batch(reads[:B], B, L)
-    pb = _pack_batch(batch)
+    B, L = (16384 if rna else 32768), 128
+    pb = _pack_batch(make_batch(list(read_fasta(rfa))[:B], B, L))
+    # the static arguments driver.align_records passes for this run
+    args = (AlignConfig(), L, pathdp.PathScoring(max_intron=200_000),
+            rna, rna, min(max(8192, B // 2), B),
+            min(max(2048, B // 8), min(max(8192, B // 2), B)),
+            min(2048, B))
 
     def run():
-        dev = ladder.align_batch_full(index, pb, config, L, sc,
-                                      splicing, splicing,
-                                      8192, 2048, 2048)
-        return device_fetch(dev)
+        return device_fetch(ladder.align_batch_full(index, pb, *args))
 
-    run()                      # warm/compile
+    run()                      # compile
     t0 = time.perf_counter()
     run()
-    print(f"steady batch wall: {(time.perf_counter()-t0)*1000:.1f} ms",
-          file=sys.stderr)
+    print(f"batch wall (dispatch to host arrays): "
+          f"{(time.perf_counter() - t0) * 1000:.1f} ms", file=sys.stderr)
 
-    tdir = "/tmp/tpumap_trace"
-    import shutil
+    tdir = bench_data.ROOT / "trace"
     shutil.rmtree(tdir, ignore_errors=True)
-    jax.profiler.start_trace(tdir)
+    jax.profiler.start_trace(str(tdir))
     run()
     jax.profiler.stop_trace()
-
-    # parse trace.json.gz for device-lane events
-    files = glob.glob(tdir + "/**/*.trace.json.gz", recursive=True)
-    if not files:
-        print("no trace found", file=sys.stderr)
-        return
-    with gzip.open(files[0], "rt") as f:
-        trace = json.load(f)
-    events = trace.get("traceEvents", [])
-    # find device PIDs (process names containing TPU/device)
-    pid_names = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pid_names[e["pid"]] = e["args"].get("name", "")
-    dev_pids = {p for p, n in pid_names.items()
-                if "TPU" in n or "/device" in n.lower() or "Chip" in n}
-    agg = {}
-    total = 0.0
-    for e in events:
-        if e.get("ph") != "X" or e.get("pid") not in dev_pids:
-            continue
-        name = e.get("name", "")
-        dur = e.get("dur", 0) / 1000.0        # us -> ms
-        agg[name] = agg.get(name, 0.0) + dur
-        total += dur
-    top = sorted(agg.items(), key=lambda kv: -kv[1])[:40]
-    print(f"device total: {total:.1f} ms  (pids: "
-          f"{[pid_names[p] for p in dev_pids]})")
-    for name, ms in top:
-        print(f"{ms:9.2f} ms  {name[:130]}")
+    ops, busy, window, seen = device_op_times(
+        glob.glob(f"{tdir}/**/*.xplane.pb", recursive=True)[0])
+    total = sum(ops.values())
+    gather = sum(v for k, v in ops.items() if "gather" in k)
+    print(f"device lines: {sorted(set(seen))[:6]}")
+    print(f"device op time {total / 1e6:.2f} ms; gather ops "
+          f"{gather / 1e6:.2f} ms; busy {busy / 1e6:.2f} ms of a "
+          f"{window / 1e6:.2f} ms window")
+    for name, ns in sorted(ops.items(), key=lambda kv: -kv[1])[:30]:
+        print(f"{ns / 1e6:9.3f} ms  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Sub-stage timing of the fast rung (_ends_standard) on the bench
 workload: cumulative pipelines jitted separately; differences give each
-stage's cost. Run on the real TPU."""
+stage's cost. Run on the GPU."""
 import pathlib
 import statistics
 import sys

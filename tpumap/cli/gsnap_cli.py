@@ -401,7 +401,7 @@ def main(argv=None):
                          "(this implementation is deterministic: genomic)")
     ap.add_argument("-O", "--ordered", action="store_true",
                     help="print output in input order; in a multi-process"
-                         " (DCN) run this merges every process's shard "
+                         " run this merges every process's shard "
                          "into ONE ordered stream written by process 0 "
                          "(Outbuffer_thread_ordered role, "
                          "src/outbuffer.c:1387); single-process output "
@@ -674,14 +674,14 @@ def main(argv=None):
 
     part = parse_part(args.part) if args.part else None
     if part is None:
-        # multi-host data parallelism over DCN: each host takes its
+        # multi-host data parallelism: each host takes its
         # process_index shard of the input (SURVEY §2.6 item 3)
         import jax
         if jax.process_count() > 1:
             part = (jax.process_index(), jax.process_count())
 
     # gsnap --ordered in a multi-process run: record every output chunk
-    # with its global input ordinal, gather over DCN, process 0 writes
+    # with its global input ordinal, gather across processes, process 0 writes
     # the merged stream (parallel/outmerge.py)
     merge = None
     out_real, router_real = out, router

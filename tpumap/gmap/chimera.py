@@ -7,7 +7,7 @@ re-aligned independently (Stage1 re-run on the margin,
 src/gmap.c:2776-2956); a good margin alignment yields a second path, and
 the query is reported as a chimera with a breakpoint.
 
-The TPU pipeline re-expression is host-side orchestration re-invoking the
+The batched re-expression is host-side orchestration re-invoking the
 batched region pipeline on the margin subsequence, then shifting the
 resulting exon chain back into whole-query coordinates.
 """

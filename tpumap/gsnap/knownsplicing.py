@@ -12,8 +12,8 @@ acceptor", sign from coordinate order); intron-level maps (e.g. from
 gff3_introns) carry full-intron intervals treated as donor..acceptor
 pairs. On device the sets become sorted uint32 arrays queried with
 searchsorted (replacing the reference's EF64 rank/select bitvectors,
-src/knownsplicing.c:58-80 — binary search over HBM-resident sorted
-arrays vectorizes better on TPU than succinct bitvector rank).
+src/knownsplicing.c:58-80 — binary search over device-resident sorted
+arrays vectorizes better than succinct bitvector rank).
 """
 from __future__ import annotations
 

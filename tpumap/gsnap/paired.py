@@ -6,7 +6,7 @@ through the same batched cascade; concordant (diagonal, strand) pairs
 within the insert window are selected jointly; an end whose mate is solved
 but who has no candidate itself gets a window-scan rescue (the LOCAL_MATE
 method) — a verify sweep over every diagonal in the mate window, which on
-TPU is just a wider verify_diagonals call.
+the device is just a wider verify_diagonals call.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def concordance_device(d1, s1, n1, L1, d2, s2, n2, L2, pairmax: int,
     The SIMD intersect-concordance role (src/concordance.c,
     src/intersect-concordance-*.c) re-expressed as one [P, K, K]
     validity/score reduction — every pair's full candidate cross product
-    is scored in one VPU pass instead of the reference's per-read
+    is scored in one vectorized pass instead of the reference's per-read
     sorted-list walk (the K-candidate set is already score-ranked, so
     the cross product IS the intersection workload).
 

@@ -14,7 +14,7 @@ surviving alternatives on the path as Altsplice_T (src/altsplice.c):
   src/altsplice.c): the placement nearest the expected insert length
   wins and the junction is emitted after all.
 
-TPU re-expression: the candidate generation is ONE device scan per side
+Batched re-expression: the candidate generation is ONE device scan per side
 (ops/localscan.scan_exact_sites) over batch-compacted reads — the
 pattern is the splice dinucleotide fused with the clipped residue, so
 every exact hit in the intron-length window is a legal placement; no

@@ -9,7 +9,7 @@ transcriptome gets its splice junctions for free — including multi-intron
 reads — at exact-match cost, which is why "TGGA is many times faster than
 regular genomic alignment" (reference README:1354).
 
-TPU re-expression: the transcriptome is simply a second GenomeDB whose
+Batched re-expression: the transcriptome is simply a second GenomeDB whose
 "chromosomes" are transcripts (seed/verify kernels are reused unchanged);
 coordinate conversion is a host-side exon-table walk producing multi-exon
 SAM records. Built from a genes map IIT (gff3_genes | iit_store format:

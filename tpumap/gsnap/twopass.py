@@ -9,9 +9,9 @@ Knownsplicing_T/Knownindels_T, fits the insert-length model
 --splices-dump/--splices-read persist the learned tables
 (src/gsnap.c:655-658).
 
-TPU re-expression: pass 1 is the same batched pipeline; "accumulate under
-a mutex" becomes a host-side reduction over the emitted junction records
-(in a multi-host run, an allgather of per-host junction sets over DCN
+Batched re-expression: pass 1 is the same batched pipeline; "accumulate
+under a mutex" becomes a host-side reduction over the emitted junction
+records (in a multi-host run, an allgather of per-host junction sets
 before pass 2 — see parallel/).
 """
 from __future__ import annotations
@@ -107,7 +107,7 @@ def two_pass_align(db, index, records, config=None, max_intron: int = 200_000,
                           tr=tr, device_ctx=device_ctx)
     ks = learn_knownsplicing(db, pass1, min_support)
     ki = KnownIndels.from_sam(db, pass1, min_support)
-    # multi-host runs all-gather each host's learned tables over DCN
+    # multi-host runs all-gather each host's learned tables across processes
     # before pass 2 (no-ops single-process; parallel/distributed.py)
     from tpumap.parallel import distributed as dist
     ks = dist.allgather_knownsplicing(ks)

@@ -5,9 +5,9 @@ util/gmap_build.pl; see SURVEY.md §2.1): chromosome table, 2-bit packed
 genome with N-flag bitmap, and a k-mer -> sorted-genomic-positions index
 (the analog of indexdb's offsets/positions pair, src/indexdb.c).
 
-Differences from the reference, by design (TPU-first):
+Differences from the reference, by design (device-resident index):
   * One .npz-backed directory format instead of 8 bespoke binary formats;
-    arrays are laid out exactly as they will live in HBM (packed uint32
+    arrays are laid out exactly as they will live on the device (packed uint32
     genome words, flat uint32 offsets/positions) so loading is a
     device_put, not a decode.
   * No bitpack64 compression of offsets: lookup must be a single gather.

@@ -1,7 +1,7 @@
 """Device-resident genome index.
 
-The HBM image of a GenomeDB: packed genome words, N-flag bitmap, k-mer
-offsets/positions, chromosome offsets — the TPU equivalent of the
+The device-memory image of a GenomeDB: packed genome words, N-flag
+bitmap, k-mer offsets/positions, chromosome offsets — the equivalent of the
 reference's mmap'd indexdb + genomebits (src/indexdb.c, src/genomebits.h),
 loaded once per process with jax.device_put (optionally with a sharding).
 

@@ -2,9 +2,8 @@
 shapes (src/path-print-sam.c Path_print_sam role, amortized).
 
 The reference spreads per-record printing across 32 host threads;
-tpumap has ONE host core feeding a TPU, so Python-object-per-record
-emission (~43 us/record measured on the RNA workload) was the
-end-to-end throughput wall.  Here the driver hands whole batch arrays
+tpumap emits from one host thread, so Python-object-per-record emission
+was the end-to-end throughput wall.  Here the driver hands whole batch arrays
 to `sam_emit_ungapped` / `sam_emit_path` (tpumap/native/sam_emit.cc)
 and gets back final SAM text; each line is wrapped in a RawSamRecord
 that parses lazily only if a downstream option actually inspects it.
@@ -177,7 +176,7 @@ _scratch = bytearray()
 
 def _out_buffer(cap: int):
     """Reused output buffer: create_string_buffer zeroes its allocation
-    (~17 ms at 32k-batch capacity) every call; a module-level bytearray
+    on every call; a module-level bytearray
     amortizes that.  Returns (ctypes view, backing bytearray) — callers
     copy out the written prefix before the next call reuses it."""
     global _scratch

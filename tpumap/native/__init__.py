@@ -1,13 +1,18 @@
 """Native (C++) host components, loaded via ctypes.
 
-The library auto-builds with g++ on first use and caches under
-_build/; every entry point has a pure-Python fallback so the framework
-works without a toolchain.
+The library is built with g++ from the committed sources on first use,
+into _build/ under a name keyed on a hash of the sources, the compile
+flags and the host's CPU architecture, so a library built from other
+sources or on another kind of machine is never loaded.  Every entry
+point has a pure-Python fallback so the framework works without a
+toolchain; `get_lib()` returns None in that case.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import sys
 
@@ -15,10 +20,46 @@ _DIR = os.path.dirname(__file__)
 _SRCS = [os.path.join(_DIR, "fastq_tokenizer.cc"),
          os.path.join(_DIR, "sam_emit.cc")]
 _BUILD = os.path.join(_DIR, "_build")
-_LIB = os.path.join(_BUILD, "libtpumap_native.so")
+# no -march=native: the library stays valid on any host of the same
+# architecture, which is all the key below records
+_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lib = None
 _tried = False
+
+
+def build_key(srcs=None, flags=None) -> str:
+    """Hash of the sources, the compile flags and the CPU architecture."""
+    h = hashlib.sha256()
+    h.update(" ".join(flags or _FLAGS).encode())
+    h.update(platform.machine().encode())
+    for s in srcs or _SRCS:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def ensure_built(srcs=None, flags=None, build_dir=None) -> str:
+    """Path of the library for the current key, compiling it if absent.
+
+    The compiler writes a temporary name that is renamed into place, so
+    concurrent processes never load a half-written file."""
+    srcs, flags = srcs or _SRCS, flags or _FLAGS
+    build_dir = build_dir or _BUILD
+    path = os.path.join(build_dir,
+                        f"libtpumap_native-{build_key(srcs, flags)}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++"] + flags + ["-o", tmp] + srcs,
+                       check=True, capture_output=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
 
 
 def get_lib():
@@ -28,15 +69,7 @@ def get_lib():
         return _lib
     _tried = True
     try:
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < max(os.path.getmtime(s)
-                                                for s in _SRCS)):
-            os.makedirs(_BUILD, exist_ok=True)
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", _LIB] + _SRCS,
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(ensure_built())
         c_long_p = ctypes.POINTER(ctypes.c_long)
         lib.fastq_scan.restype = ctypes.c_long
         lib.fastq_scan.argtypes = [

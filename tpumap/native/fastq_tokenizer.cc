@@ -2,8 +2,8 @@
 //
 // The host input pipeline equivalent of the reference's C parsers
 // (src/shortread.c Shortread_read_fastq_text / src/sequence.c): the
-// reference keeps this layer in C for speed, and at TPU batch rates the
-// Python line parser becomes the bottleneck, so this is the one justified
+// reference keeps this layer in C for speed, and at device batch rates
+// the Python line parser becomes the bottleneck, so this is the one justified
 // native host component (SURVEY.md §7). One pass over the whole file
 // buffer: record spans out, then batched 2-bit encoding straight into the
 // numpy arrays that are device_put.

@@ -3,9 +3,8 @@
 // Role analog: src/path-print-sam.c Path_print_sam for the hot cases
 // (ungapped substitution alignments, with optional terminal soft clips,
 // and N-exon spliced/deletion paths).  The reference amortizes printing
-// across 32 threads; tpumap has ONE host core next to the TPU, so the
-// per-record Python emission (43 us/record measured) must collapse into
-// one C pass per batch (~0.5 us/record).
+// across 32 threads; tpumap emits from one host thread, so the
+// per-record Python emission must collapse into one C pass per batch.
 //
 // The emitters produce FINAL newline-terminated SAM text per read into
 // a caller-provided buffer.  MD/NM are computed here from the 2-bit

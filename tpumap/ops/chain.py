@@ -2,8 +2,8 @@
 
 The reference builds small 8-mer indexes of the genomic region and runs a
 sparse lookback DP over (querypos, genomepos) dot-plot entries
-(src/stage2.c Stage2_compute + src/oligoindex_hr.c). The TPU re-expression
-factors that into three fixed-shape device stages:
+(src/stage2.c Stage2_compute + src/oligoindex_hr.c). The batched
+re-expression factors that into three fixed-shape device stages:
 
   1. region_index   — sort-based 8-mer index of the region (per problem)
   2. anchors        — query-oligo lookups -> (q, diag) anchor set
@@ -51,9 +51,8 @@ def region_index(codes: jax.Array, valid: jax.Array, k: int):
     """Sorted (oligo, pos) arrays: the region's on-the-fly k-mer index.
 
     lax.sort co-sorts the positions INSIDE the sort network — an
-    argsort + permutation gather costs ~12 ns per gathered element on
-    this chip (the XLA gather tax) and dominated the whole GMAP chain
-    stage for 100 kbp+ regions."""
+    argsort + permutation gather adds a gather per element, which
+    dominated the whole GMAP chain stage for 100 kbp+ regions."""
     oligos = region_oligos(codes, valid, k)
     pos = jnp.arange(codes.shape[0], dtype=jnp.uint32)
     so, sp = jax.lax.sort((oligos, pos), num_keys=1)
@@ -73,9 +72,9 @@ def anchors_from_query(sorted_oligos: jax.Array, sorted_pos: jax.Array,
     When k is given and small (<= 12), the per-query binary search over
     the sorted region oligos is replaced by a direct-address start/count
     table of size 4^k built with one scatter pass — the vmapped
-    searchsorted was the measured hot spot of the GMAP chain stage
-    (~70 ms per 108-problem group; the oligoindex_hr.c role of a
-    direct-address table, re-expressed as scatter+gather)."""
+    searchsorted was the hot spot of the GMAP chain stage (the
+    oligoindex_hr.c role of a direct-address table, re-expressed as
+    scatter+gather)."""
     Q = q_oligos.shape[0]
     if k is not None and k <= 12:
         T = 1 << (2 * k)
@@ -163,6 +162,14 @@ def anchors_to_segments(diag: jax.Array, q: jax.Array, ok: jax.Array,
     }
 
 
+def gap_cost(gs: jax.Array, ge: jax.Array) -> jax.Array:
+    """float32[j, i] cost of joining segment i (genomic end ge[i]) to
+    segment j (genomic start gs[j]): discourages absurd joins but never
+    beats real anchors.  The chain DP's one float op."""
+    return jnp.log1p(jnp.abs(gs[None, :] - ge[:, None])
+                     .astype(jnp.float32)).T * 0.01
+
+
 def chain_segments(segs: dict, max_intron: int = 500_000,
                    max_qoverlap_frac: float = 0.5):
     """Pick the best collinear segment chain (max-plus DP over segments).
@@ -201,8 +208,7 @@ def chain_segments(segs: dict, max_intron: int = 500_000,
     ii = jnp.arange(S)
     adj = jax.vmap(lambda j: jax.vmap(lambda i: allowed(i, j))(ii))(ii)  # [j, i]
 
-    # gap cost discourages absurd joins but never beats real anchors
-    gapcost = jnp.log1p(jnp.abs((gs[None, :] - ge[:, None])).astype(jnp.float32)).T * 0.01
+    gapcost = gap_cost(gs, ge)
 
     def step(scores, j):
         cand = jnp.where(adj[j], scores - gapcost[j], jnp.float32(NEG))

@@ -15,7 +15,7 @@ Row recurrence (lane-parallel):
 The E scan uses the fact that an optimal row-gap always opens from a
 non-E cell, so a single cummax over (max(M,F)[k'] + extend*k') is exact —
 this replaces the reference's lazy-F loop with one associative scan, which
-XLA maps onto the VPU.
+XLA maps onto vector units.
 
 Traceback: per-cell 2-bit direction + gap-continuation bits are stored
 during the forward pass ([Lq, W] uint8 per problem) and walked back with a

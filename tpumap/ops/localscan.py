@@ -6,14 +6,14 @@ k-mer index cannot seed (fragments shorter than k, or split by a splice
 site close to the read end); Spliceends_* consult it to find novel
 splice-end diagonals (src/spliceends.c:5080, src/path-solve.c).
 
-Suffix arrays gather-poorly on TPU. The same capability re-expressed
-TPU-first: extract the bounded genomic window once as PACKED words
+Suffix arrays gather poorly on a batched device. The same capability
+re-expressed for it: extract the bounded genomic window once as PACKED words
 (W/16 uint32 gathers per read) and compare the packed fragment word
 against all W offsets as 16 shift phases of an XOR+popcount stream —
 the genomebits idea applied to the scan. Per offset that is ~1 uint32
 op instead of F byte compares + an int32 accumulate, and no unpacked
-[R, W] byte tensor ever touches HBM (the round-2 version measured
-67-336 ms per call at salvage scale; this form is ~1-2 ms).
+[R, W] byte tensor ever touches device memory (the byte-tensor form
+was many times slower at salvage scale).
 
 Only reads the cascade failed to solve reach this op, batch-compacted.
 """
@@ -84,7 +84,7 @@ def scan_fragment(genome_packed: jax.Array, win_starts: jax.Array,
                                  frag_lens, window, max_frag)
     # exact top_k by iterated global-min over a combined (nmm, offset)
     # key with two-level (block-min) reduction: lax.top_k over the full
-    # [R, window] tensor measured 660 ms/batch; this form is ~10 ms.
+    # [R, window] tensor was far slower.
     R = nmm.shape[0]
     off = jnp.arange(window, dtype=jnp.int32)[None, :]
     key = nmm * jnp.int32(131072) + off            # nmm-major, offset tiebreak

@@ -1,6 +1,6 @@
 """Batched multi-junction path solver + end trimming (device kernels).
 
-TPU re-expression of the reference's path-solving/trimming stack:
+Batched re-expression of the reference's path-solving/trimming stack:
 
 * ``src/path-solve.c`` (Path_solve_from_diagonals, combine_leftright_paths,
   MAX_DEPTH_MIDDLE): resolving a read against several candidate diagonals
@@ -27,7 +27,7 @@ Ending is free anywhere (suffix soft-clipped), so end trimming falls out
 of the local-alignment semantics rather than being a separate pass.
 
 The DP is a lax.scan over query positions with [R, K, K] transition math
-per step — all elementwise/reduce VPU ops, no data-dependent control
+per step — all elementwise/reduce ops, no data-dependent control
 flow; traceback is a second (reverse) scan producing fixed-size segment
 arrays. R is the compacted unsolved-read set, so the O(L·K²) work runs on
 a few hundred rows, not the whole batch.

@@ -1,6 +1,6 @@
 """Seed-finding kernels (device ops).
 
-TPU re-expression of the reference's seed stage (src/kmer-search.c
+Batched re-expression of the reference's seed stage (src/kmer-search.c
 Kmer_exact1 / Kmer_segment / Kmer_prevalent + the SIMD k-way diagonal merge
 in src/merge-diagonals-simd-*.c): gather the genomic position lists of a
 read's k-mers, convert to univdiagonals, and find the diagonals supported by

@@ -1,6 +1,6 @@
 """Mismatch verification kernels (device ops).
 
-TPU equivalent of the reference's genomebits XOR+popcount machinery
+Device equivalent of the reference's genomebits XOR+popcount machinery
 (src/genomebits_count.c Genomebits_count_mismatches_substring,
 src/genomebits_mismatches.c Genomebits_mismatches_fromleft/right): compare a
 2-bit packed read batch against genome windows gathered at candidate
@@ -45,9 +45,9 @@ def extract_packed_window(genome_packed: jax.Array, starts: jax.Array,
     starting at `start`.
 
     Wide windows are fetched as one dynamic slice per row (a contiguous
-    DMA) rather than an elementwise gather: XLA lowers per-element takes
-    to scalar HBM gathers, which measured ~50M elements/s — a 65 Kbp
-    window scan spent ~1 s/batch on the gather alone.  DeviceIndex pads
+    copy) rather than an elementwise gather: XLA lowers per-element takes
+    to one gathered element per index, which made the 65 Kbp window scan
+    gather-bound.  DeviceIndex pads
     genome_packed by SAFE_PAD_WORDS so slices up to that width never clamp
     for in-genome starts; wider windows zero-extend the operand here so
     lax.dynamic_slice's silent start-clamping can never shift a window

@@ -1,10 +1,10 @@
-"""Multi-host (DCN) reductions for two-pass learning.
+"""Multi-host reductions for two-pass learning.
 
 The reference's pass-1 learning accumulates splice/indel/insert tables
 under a process-local mutex (src/gsnap.c:4259-4352, pass1_lock); its
 multi-machine story is "run N independent processes with --part i/n",
-which learns only each shard's junctions. The TPU deployment runs one
-jax process per host over a DCN-connected pod slice, so pass-1 tables
+which learns only each shard's junctions. A multi-host deployment runs
+one jax process per host, so pass-1 tables
 are ALL-GATHERED across processes before pass 2 — every host realigns
 with the union of learned knowledge (SURVEY §5 "distributed backend",
 §3.5 host->host boundary).
@@ -46,7 +46,7 @@ def allgather_array(arr: np.ndarray) -> np.ndarray:
 
 
 def allgather_knownsplicing(ks: KnownSplicing) -> KnownSplicing:
-    """Union of learned splice junctions across processes (the DCN
+    """Union of learned splice junctions across processes (the cross-host
     analog of Knownsplicing_new over the merged tables,
     src/gsnap.c:4340-4352)."""
     if _nprocs() == 1:

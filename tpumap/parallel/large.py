@@ -2,12 +2,12 @@
 
 The reference compiles separate gmapl/gsnapl binaries with 8-byte
 univcoords for genomes >2^32 bp (src/Makefile.am:366, src/types.h:38-58,
-src/univcoord.h). The TPU-native equivalent avoids 64-bit device
-arithmetic entirely: the genome is sharded into coordinate windows across
+src/univcoord.h). This equivalent avoids 64-bit device arithmetic
+entirely: the genome is sharded into coordinate windows across
 the `index` mesh axis, each window small enough that LOCAL coordinates fit
 uint32 (the fast device currency); every device seeds + verifies the
 (data-sharded, index-replicated) read batch against its own window, the
-per-window results are all-gathered over ICI and reduced to the global
+per-window results are all-gathered across devices and reduced to the global
 best, and the host rebases (shard, local_diag) -> uint64 univcoord.
 
 Windows overlap by `overlap` bases (>= max read length) so an alignment
@@ -150,7 +150,7 @@ def make_genome_sharded_aligner(mesh, db: GenomeDB, config: AlignConfig,
         strands = jnp.concatenate([jnp.zeros((B, K), jnp.int32),
                                    jnp.ones((B, K), jnp.int32)], axis=1)
 
-        # global reduction across genome windows (ICI all-gather)
+        # global reduction across genome windows (device all-gather)
         shard_id = jax.lax.axis_index(INDEX_AXIS).astype(jnp.int32)
         g_diags = jax.lax.all_gather(local_diags, INDEX_AXIS, axis=0)
         g_nmm = jax.lax.all_gather(local_nmm, INDEX_AXIS, axis=0)

@@ -1,11 +1,11 @@
-"""Multi-host ordered output merge (gsnap --ordered over DCN).
+"""Multi-host ordered output merge (gsnap --ordered across processes).
 
 The reference prints in input order from ONE process via
 Outbuffer_thread_ordered (src/outbuffer.c:1387): worker threads hand
-result blocks to an output thread that releases them in sequence.  The
-TPU deployment's scale-out unit is a PROCESS per host (--part i/n
+result blocks to an output thread that releases them in sequence.  A
+multi-host deployment's scale-out unit is a PROCESS per host (--part i/n
 auto-sharding over jax.process_count()), so the same contract needs a
-DCN gather: every process formats its own shard's records, tags each
+cross-process gather: every process formats its own shard's records, tags each
 with its GLOBAL input ordinal, and process 0 writes the merged stream
 in ordinal order — byte-identical to a single-process run, including
 --split-output category routing.

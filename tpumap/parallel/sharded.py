@@ -1,10 +1,10 @@
 """Index-sharded, data-parallel alignment over a (data, index) mesh.
 
-This is the pod-scale path (SURVEY.md §2.6 item 4): for genomes whose
+This is the multi-device path (SURVEY.md §2.6 item 4): for genomes whose
 k-mer positions array exceeds one chip's HBM, positions are sharded by
 oligo range along the `index` mesh axis. Each device seeds its local read
 shard against its local oligo range; candidate diagonals are then
-all-gathered across the index axis (ICI collective) so every device can
+all-gathered across the index axis (a device collective) so every device can
 verify its own reads against the (replicated or sharded) genome.
 
 The single-chip fast path (index replicated) is gsnap.engine.align_batch;
@@ -83,7 +83,7 @@ def _shard_arrays(mesh, db: GenomeDB, pad_words: int):
 def _strand_candidates(li, offsets, positions, k, span, config,
                        c, m, lengths):
     """One strand's candidate generation behind the oligo sharding:
-    local-range seeding, ICI all-gather of the union, prevalent-diagonal
+    local-range seeding, all-gather of the union, prevalent-diagonal
     ranking, verification against the replicated genome."""
     oligos, valid = seed.query_oligos(c, m, lengths, k)
     shard_id = jax.lax.axis_index(INDEX_AXIS).astype(jnp.uint32)
@@ -178,7 +178,7 @@ def make_sharded_full_aligner(mesh, db: GenomeDB, config: AlignConfig,
                               pad_words: int = 4352):
     """FULL-capability sharded-index aligner (SURVEY §2.6 item 4): an
     HBM-overflow index keeps the complete refinement ladder — cascade
-    seeding per oligo shard, ICI all-gather of candidate diagonals,
+    seeding per oligo shard, all-gather of candidate diagonals,
     then trim + chain-DP splices + salvage + banded-DP indels (and the
     paired concordance kernel) run LOCALLY on each data shard against
     the replicated genome (ladder.refine_full; no further collectives).
